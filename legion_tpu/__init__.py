@@ -1,30 +1,44 @@
-"""legion_tpu — a TPU-native mini-batch GNN training framework.
+"""Former name of the ``legion`` package, kept as an alias for one release.
 
-A from-scratch JAX/XLA/Pallas/pjit redesign of the capabilities of Legion
-(USENIX ATC'23, reference at /root/reference): on-device neighbor sampling,
-hotness-aware hierarchical feature/topology caching driven by a presampling
-cost model, and sparse neighborhood aggregation — built TPU-first:
-
-* sampling, dedup/renumbering, feature gather and aggregation are jitted
-  functions with static padded shapes (replacing CUDA kernels + atomics,
-  reference ``src/Kernels.cu``);
-* the sampler/trainer pipeline is in-process double-buffered prefetch
-  (replacing the CUDA-IPC server/client split, ``src/CUDA_IPC_Service.cu``);
-* the hotness cache is a sorted-hot-id feature cache + compacted sub-CSR
-  in HBM (replacing BGHT hash tables + NVLink clique caches,
-  ``src/GPUCache.cu``);
-* scaling is data-parallel ``shard_map`` over a device mesh with the cache
-  sharded across the ICI domain (replacing NCCL DDP + P2P pointer tables).
+Importing this package, or any module under it, warns once and yields
+the ``legion`` module of the same path: the very same module objects, so
+classes, registries and jitted functions are shared with code that
+imports ``legion`` directly.
 """
 
-__version__ = "0.1.0"
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
 
-from legion_tpu.config import (  # noqa: F401
-    CacheConfig,
-    Config,
-    DatasetConfig,
-    ModelConfig,
-    ParallelConfig,
-    SamplerConfig,
-    TrainConfig,
-)
+_NEW = "legion"
+_OLD = __name__
+
+
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves ``<old>.x.y`` to ``legion.x.y``, importing it if need be."""
+
+    def __init__(self):
+        self._specs = {}
+
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname.startswith(_OLD + "."):
+            return importlib.util.spec_from_loader(fullname, self)
+        return None
+
+    def create_module(self, spec):
+        module = importlib.import_module(_NEW + spec.name[len(_OLD):])
+        # the import system stamps the alias spec on the module it is
+        # handed; exec_module puts the module's own spec back
+        self._specs[spec.name] = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        module.__spec__ = self._specs.pop(module.__spec__.name)
+
+
+warnings.warn(f"the {_OLD!r} package is now {_NEW!r}; import {_NEW!r}",
+              DeprecationWarning, stacklevel=2)
+sys.meta_path.insert(0, _Alias())
+sys.modules[_OLD] = importlib.import_module(_NEW)

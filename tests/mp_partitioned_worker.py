@@ -34,11 +34,11 @@ os.environ["LEGION_PROCESS_ID"] = sys.argv[1]
 
 
 def main():
-    from legion_tpu.config import (CacheConfig, Config, DatasetConfig,
-                                   ModelConfig, ParallelConfig,
-                                   SamplerConfig, TrainConfig)
-    from legion_tpu.data.synthetic import random_power_law_graph
-    from legion_tpu.train.partitioned_driver import run_partitioned_training
+    from legion.config import (CacheConfig, Config, DatasetConfig,
+                               ModelConfig, ParallelConfig,
+                               SamplerConfig, TrainConfig)
+    from legion.data.synthetic import random_power_law_graph
+    from legion.train.partitioned_driver import run_partitioned_training
 
     data = random_power_law_graph(num_nodes=2000, avg_degree=8,
                                   feature_dim=32, num_classes=7, seed=1)

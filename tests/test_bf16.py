@@ -3,8 +3,8 @@ converges comparably to f32 on the planted-label graph."""
 
 import numpy as np
 
-from legion_tpu.config import Config, DatasetConfig, ModelConfig, SamplerConfig, TrainConfig
-from legion_tpu.train.loop import Trainer
+from legion.config import Config, DatasetConfig, ModelConfig, SamplerConfig, TrainConfig
+from legion.train.loop import Trainer
 
 
 def _cfg(num_classes, dtype):

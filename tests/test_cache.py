@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from legion_tpu.cache.cost_model import solve_cost_model
-from legion_tpu.cache.feature_cache import FeatureCache
-from legion_tpu.cache.hotness import observed_caps, presample_hotness
-from legion_tpu.cache.topo_cache import TopoCache, host_sample_cold
-from legion_tpu.sampling.block import frontier_caps
-from legion_tpu.sampling.sampler import DeviceGraph
+from legion.cache.cost_model import solve_cost_model
+from legion.cache.feature_cache import FeatureCache
+from legion.cache.hotness import observed_caps, presample_hotness
+from legion.cache.topo_cache import TopoCache, host_sample_cold
+from legion.sampling.block import frontier_caps
+from legion.sampling.sampler import DeviceGraph
 
 
 def test_presample_hotness_counts(small_graph):
@@ -60,7 +60,7 @@ def test_cost_model_extremes():
 
 
 def test_cost_model_placement_blindness_fixed():
-    """Regression (VERDICT r2 weak #1): with HBM-resident topology a topo
+    """Regression: with HBM-resident topology a topo
     cache saves zero host bytes, so even overwhelming edge hotness must
     not divert budget — alpha == 0 and the feature capacity is the full
     budget's worth of rows."""
@@ -143,7 +143,7 @@ def test_feature_cache_hit_rate_on_skewed_traffic(small_graph):
     feats = np.asarray(small_graph.features)
     cache = FeatureCache.build(feats, order, capacity=600, miss_cap=caps[-1])
 
-    from legion_tpu.sampling.sampler import sample_batch
+    from legion.sampling.sampler import sample_batch
     batch = sample_batch(jax.random.PRNGKey(99), g, jnp.asarray(seeds[0]),
                          jnp.full((), b, jnp.int32),
                          jnp.zeros((b,), jnp.int32), fanouts, caps)
@@ -186,7 +186,7 @@ def test_cache_plan_staging_overflow():
     combine to zero (not garbage)."""
     import jax.numpy as jnp
     import numpy as np
-    from legion_tpu.cache.feature_cache import FeatureCache
+    from legion.cache.feature_cache import FeatureCache
     feats = np.arange(40, dtype=np.float32).reshape(10, 4) + 1.0
     # cache holds rows {0, 1}; frontier has 4 misses but miss_cap=2
     cache = FeatureCache.build(feats, np.array([0, 1]), capacity=2,

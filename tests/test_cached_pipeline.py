@@ -6,13 +6,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from legion_tpu.cache.feature_cache import FeatureCache
-from legion_tpu.cache.pipeline import CachedTrainer
-from legion_tpu.config import Config, DatasetConfig, ModelConfig, SamplerConfig, TrainConfig
-from legion_tpu.models import build_model
-from legion_tpu.sampling.block import frontier_caps
-from legion_tpu.sampling.sampler import DeviceGraph
-from legion_tpu.train.train_state import create_train_state
+from legion.cache.feature_cache import FeatureCache
+from legion.cache.pipeline import CachedTrainer
+from legion.config import Config, DatasetConfig, ModelConfig, SamplerConfig, TrainConfig
+from legion.models import build_model
+from legion.sampling.block import frontier_caps
+from legion.sampling.sampler import DeviceGraph
+from legion.train.train_state import create_train_state
 
 
 def _mk(small_graph, capacity, batch=64):
@@ -35,7 +35,7 @@ def _mk(small_graph, capacity, batch=64):
 
 
 def _params(model, graph, caps, cfg, feats):
-    from legion_tpu.sampling.sampler import gather_features, sample_batch
+    from legion.sampling.sampler import gather_features, sample_batch
     b = cfg.sampler.batch_size
     batch = sample_batch(jax.random.PRNGKey(0), graph,
                          jnp.arange(b, dtype=jnp.int32),
@@ -67,7 +67,7 @@ def test_cached_trainer_learns_partial_cache(small_graph):
 
 def test_cached_matches_uncached_when_cache_holds_all(small_graph):
     """Full-capacity cache: identical numerics to the plain HBM path."""
-    from legion_tpu.train.loop import make_step_fns
+    from legion.train.loop import make_step_fns
     cfg, caps, graph, cache, model, feats = _mk(
         small_graph, capacity=small_graph.num_nodes)
     params = _params(model, graph, caps, cfg, feats)
@@ -88,7 +88,7 @@ def test_cached_matches_uncached_when_cache_holds_all(small_graph):
     st2 = create_train_state(jax.tree_util.tree_map(jnp.copy, params), 0.01, 0)
     # reproduce CachedTrainer's key schedule
     key = jax.random.fold_in(st2.rng, 0)
-    from legion_tpu.sampling.sampler import gather_features, sample_batch
+    from legion.sampling.sampler import gather_features, sample_batch
     feats_dev = jnp.asarray(feats)
     for i in range(2):
         k = jax.random.fold_in(key, i)
@@ -98,7 +98,7 @@ def test_cached_matches_uncached_when_cache_holds_all(small_graph):
                              tuple(cfg.sampler.fanouts), caps)
         x = gather_features(feats_dev, batch.frontier)
         # manual train step mirroring CachedTrainer.train_from
-        from legion_tpu.train.loop import masked_softmax_ce
+        from legion.train.loop import masked_softmax_ce
 
         def loss_fn(p, dkey):
             out = model.apply({"params": p}, tuple(reversed(batch.blocks)),
@@ -121,9 +121,9 @@ def test_cached_training_bf16_cache(small_graph):
     """bf16 model => bf16 cache rows + staging: runs end-to-end through
     run_cached_training, hit rate sane, loss finite, staged dtype bf16."""
     import ml_dtypes
-    from legion_tpu.config import (CacheConfig, Config, DatasetConfig,
-                                   ModelConfig, SamplerConfig, TrainConfig)
-    from legion_tpu.train.cached_driver import run_cached_training
+    from legion.config import (CacheConfig, Config, DatasetConfig,
+                               ModelConfig, SamplerConfig, TrainConfig)
+    from legion.train.cached_driver import run_cached_training
     cfg = Config(
         dataset=DatasetConfig(num_classes=small_graph.num_classes,
                               feature_placement="host"),

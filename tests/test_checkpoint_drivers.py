@@ -1,4 +1,4 @@
-"""Kill-and-resume coverage for the scale drivers (VERDICT item 6): the
+"""Kill-and-resume coverage for the scale drivers: the
 cached driver checkpoints at epoch end (and optionally mid-epoch) and a
 fresh process picks up exactly where the dead one stopped. The reference
 has no checkpointing at all — a crash loses the run (SURVEY.md §5)."""
@@ -7,10 +7,10 @@ import os
 
 import numpy as np
 
-from legion_tpu.config import (CacheConfig, Config, DatasetConfig,
-                               ModelConfig, SamplerConfig, TrainConfig)
-from legion_tpu.train.cached_driver import run_cached_training
-from legion_tpu.train.train_state import latest_checkpoint
+from legion.config import (CacheConfig, Config, DatasetConfig,
+                           ModelConfig, SamplerConfig, TrainConfig)
+from legion.train.cached_driver import run_cached_training
+from legion.train.train_state import latest_checkpoint
 
 
 def _cfg(small_graph, epochs, ck, every=0):

@@ -1,4 +1,4 @@
-"""Packed-dataset CLI path (VERDICT r2 weak #8): the exact command shape
+"""Packed-dataset CLI path: the exact command shape
 the real-data parity plan depends on — load a dataset DIRECTORY from
 disk, train, eval — proven end-to-end in CI on a synthetic graph written
 by save_dataset, including the precomputed-partition file and the
@@ -13,8 +13,8 @@ import sys
 import numpy as np
 import pytest
 
-from legion_tpu.data.format import load_dataset, save_dataset
-from legion_tpu.data.synthetic import random_power_law_graph
+from legion.data.format import load_dataset, save_dataset
+from legion.data.synthetic import random_power_law_graph
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -109,7 +109,7 @@ def test_cli_auto_cache_group(packed_dir):
 
 def test_cli_explicit_cache_group_cross_host_warns(packed_dir):
     """An explicit Kg beyond the local device count warns that stripe
-    exchange leaves the ICI domain."""
+    exchange leaves the host."""
     r = _run(["--data-dir", packed_dir, "--epochs", "1",
               "--batch-size", "32", "--fanouts", "4,3",
               "--devices", "16", "--cache-group", "16",

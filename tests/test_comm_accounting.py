@@ -1,4 +1,4 @@
-"""Quantitative comm accounting (VERDICT r3 next #5): the closed-form
+"""Quantitative comm accounting: the closed-form
 per-step collective volumes are asserted against the collectives
 ACTUALLY PRESENT in the compiled HLO of each exchange/step program —
 converting the core-starved virtual-mesh scaling study into checkable
@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from legion_tpu.parallel.feature_exchange import (
+from legion.parallel.feature_exchange import (
     owner_cap, shard_rows, sharded_row_fetch_psum, sharded_row_fetch_stats)
-from legion_tpu.utils.comm import (
+from legion.utils.comm import (
     exact_exchange_bytes, halo_exact_fetch_bytes, halo_exact_hop_bytes,
     hlo_collective_bytes, link_bytes, psum_exchange_bytes)
 
@@ -58,7 +58,7 @@ def test_exact_exchange_hlo_matches_formula(mesh):
 def test_exact_exchange_probed_cap_flows_to_hlo(mesh):
     """A PROBED (non-default) owner cap must flow through routing,
     demotion AND the compiled collective bytes — the closed form carries
-    the cap (VERDICT r4 #1 'done when')."""
+    the cap."""
     rows, ids = _striped_args(mesh)
     cap = 40                        # != owner_cap(M, K) = 48
 
@@ -103,7 +103,7 @@ def test_exact_exchange_cuts_link_volume_by_k_over_slack(mesh):
 def test_striped_topo_sample_hot_hlo(mesh):
     """sample_hot's routed exchange: three all_to_alls (ids + draw-index
     payload + fanout-wide draws), no psum_scatter."""
-    from legion_tpu.cache.striped import StripedTopoCache
+    from legion.cache.striped import StripedTopoCache
     fanout = 5
     cap = owner_cap(M, K)
     hot = jax.device_put(jnp.arange(64, dtype=jnp.int32),
@@ -131,15 +131,15 @@ def test_striped_topo_sample_hot_hlo(mesh):
 
 
 def _dp_fixture(small_graph):
-    from legion_tpu.config import (Config, DatasetConfig, ModelConfig,
-                                   SamplerConfig, TrainConfig)
-    from legion_tpu.models import build_model
-    from legion_tpu.parallel.dp import make_dp_train_step
-    from legion_tpu.parallel.mesh import make_mesh
-    from legion_tpu.sampling.block import frontier_caps
-    from legion_tpu.sampling.sampler import (DeviceGraph, gather_features,
-                                             sample_batch)
-    from legion_tpu.train.train_state import create_train_state
+    from legion.config import (Config, DatasetConfig, ModelConfig,
+                               SamplerConfig, TrainConfig)
+    from legion.models import build_model
+    from legion.parallel.dp import make_dp_train_step
+    from legion.parallel.mesh import make_mesh
+    from legion.sampling.block import frontier_caps
+    from legion.sampling.sampler import (DeviceGraph, gather_features,
+                                         sample_batch)
+    from legion.train.train_state import create_train_state
 
     cfg = Config(
         dataset=DatasetConfig(num_classes=small_graph.num_classes),
@@ -174,7 +174,7 @@ def test_dp_grad_allreduce_bytes(small_graph):
     small scalar psums) — the NCCL-DDP analog, now pinned. Guards
     against the double all-reduce of pmean-after-auto-psum (jax-0.9
     shard_map vma already sums grads at the pvary transpose)."""
-    from legion_tpu.utils.comm import param_bytes
+    from legion.utils.comm import param_bytes
     (cfg, mesh4, graph, caps, model, feats, seeds, labels, params,
      state, step) = _dp_fixture(small_graph)
     txt = step.lower(state, graph, feats, seeds,
@@ -193,18 +193,18 @@ def test_striped_cached_step_collective_composition(small_graph):
     and the sample+plan program contains NO collectives at all. A
     regression that reintroduces the psum exchange or a second gradient
     all-reduce fails here by name."""
-    from legion_tpu.cache.feature_cache import FeatureCache
-    from legion_tpu.cache.striped import StripedFeatureCache
-    from legion_tpu.cache.striped_pipeline import StripedCachedTrainer
-    from legion_tpu.config import (CacheConfig, Config, DatasetConfig,
-                                   ModelConfig, SamplerConfig,
-                                   TrainConfig)
-    from legion_tpu.models import build_model
-    from legion_tpu.parallel.mesh import make_mesh
-    from legion_tpu.sampling.block import frontier_caps
-    from legion_tpu.sampling.sampler import DeviceGraph
-    from legion_tpu.train.train_state import create_train_state
-    from legion_tpu.utils.comm import param_bytes
+    from legion.cache.feature_cache import FeatureCache
+    from legion.cache.striped import StripedFeatureCache
+    from legion.cache.striped_pipeline import StripedCachedTrainer
+    from legion.config import (CacheConfig, Config, DatasetConfig,
+                               ModelConfig, SamplerConfig,
+                               TrainConfig)
+    from legion.models import build_model
+    from legion.parallel.mesh import make_mesh
+    from legion.sampling.block import frontier_caps
+    from legion.sampling.sampler import DeviceGraph
+    from legion.train.train_state import create_train_state
+    from legion.utils.comm import param_bytes
 
     mesh2 = make_mesh(2, cache_group_size=2)
     cfg = Config(
@@ -248,7 +248,7 @@ def test_striped_cached_step_collective_composition(small_graph):
 
     # init a state on the mesh (shapes only)
     import jax.random as jr
-    from legion_tpu.sampling.sampler import gather_features, sample_batch
+    from legion.sampling.sampler import gather_features, sample_batch
     b0 = sample_batch(jr.PRNGKey(0), graph,
                       jnp.arange(32, dtype=jnp.int32),
                       jnp.full((), 32, jnp.int32),
@@ -289,9 +289,9 @@ def test_dp_grads_are_mean_of_shard_grads(small_graph):
     round 4 the mesh trainers applied the SUM — the auto-psum of the
     vma transpose followed by pmean-of-identical-sums — silently
     scaling the effective lr by the device count."""
-    from legion_tpu.sampling.sampler import gather_features, sample_batch
-    from legion_tpu.train.loop import masked_softmax_ce
-    from legion_tpu.train.train_state import create_train_state
+    from legion.sampling.sampler import gather_features, sample_batch
+    from legion.train.loop import masked_softmax_ce
+    from legion.train.train_state import create_train_state
     (cfg, mesh4, graph, caps, model, feats, seeds, labels, params,
      state, step) = _dp_fixture(small_graph)
     # the jitted step donates its state buffers — keep an owned copy
@@ -334,7 +334,7 @@ def test_dp_grads_are_mean_of_shard_grads(small_graph):
 
 
 # ---------------------------------------------------------------------------
-# Round-5 additions (VERDICT r4 #2/#3): the exact halo exchange and the
+# Round-5 additions: the exact halo exchange and the
 # remaining step programs — striped-hybrid train/eval, the partitioned
 # step, and the DP/striped eval programs. Every driver's compiled
 # collective composition is now either asserted exactly or pinned
@@ -343,8 +343,8 @@ def test_dp_grads_are_mean_of_shard_grads(small_graph):
 
 
 def _halo_shard_args(small_graph, k):
-    from legion_tpu.data.partition import partition_graph
-    from legion_tpu.parallel.halo import HostShard
+    from legion.data.partition import partition_graph
+    from legion.parallel.halo import HostShard
     part = partition_graph(small_graph, k, mode="hash")
     parts = HostShard.build(small_graph.indptr, small_graph.indices,
                             small_graph.features, part, k)
@@ -352,8 +352,8 @@ def _halo_shard_args(small_graph, k):
 
 
 def test_halo_exact_fetch_hlo_matches_formula(mesh, small_graph):
-    from legion_tpu.parallel.halo import (HostShard,
-                                          partitioned_row_fetch_exact)
+    from legion.parallel.halo import (HostShard,
+                                      partitioned_row_fetch_exact)
     part, stacked = _halo_shard_args(small_graph, K)
     sh = NamedSharding(mesh, P("cache"))
     owned, sp, si, fr = [jax.device_put(jnp.asarray(a), sh)
@@ -381,8 +381,8 @@ def test_halo_exact_fetch_hlo_matches_formula(mesh, small_graph):
 
 
 def test_halo_exact_hop_hlo_matches_formula(mesh, small_graph):
-    from legion_tpu.parallel.halo import (HostShard,
-                                          partitioned_sample_hop_exact)
+    from legion.parallel.halo import (HostShard,
+                                      partitioned_sample_hop_exact)
     part, stacked = _halo_shard_args(small_graph, K)
     sh = NamedSharding(mesh, P("cache"))
     owned, sp, si, fr = [jax.device_put(jnp.asarray(a), sh)
@@ -419,14 +419,14 @@ def test_partitioned_step_collective_composition(small_graph):
     collectives (the psum path's signature). VERDICT r4 #2 'done when'
     criterion."""
     from jax.sharding import Mesh
-    from legion_tpu.config import (Config, DatasetConfig, ModelConfig,
-                                   SamplerConfig, TrainConfig)
-    from legion_tpu.models import build_model
-    from legion_tpu.parallel.multihost import make_partitioned_train_step
-    from legion_tpu.sampling.block import frontier_caps
-    from legion_tpu.sampling.sampler import DeviceGraph, sample_batch
-    from legion_tpu.train.train_state import create_train_state
-    from legion_tpu.utils.comm import param_bytes
+    from legion.config import (Config, DatasetConfig, ModelConfig,
+                               SamplerConfig, TrainConfig)
+    from legion.models import build_model
+    from legion.parallel.multihost import make_partitioned_train_step
+    from legion.sampling.block import frontier_caps
+    from legion.sampling.sampler import DeviceGraph, sample_batch
+    from legion.train.train_state import create_train_state
+    from legion.utils.comm import param_bytes
 
     k, b, fanouts = 4, 32, (4, 3)
     cfg = Config(
@@ -441,7 +441,7 @@ def test_partitioned_step_collective_composition(small_graph):
     dcaps = (96, 64, 48)
     pstep, put_shards = make_partitioned_train_step(
         cfg, model, caps, pmesh, dist_caps=dcaps)
-    from legion_tpu.data.partition import partition_graph
+    from legion.data.partition import partition_graph
     part = partition_graph(small_graph, k, mode="greedy")
     shard_args = put_shards(small_graph.indptr, small_graph.indices,
                             small_graph.features, part)
@@ -483,10 +483,10 @@ def test_striped_hybrid_collective_composition(small_graph):
     exact feature exchange + ONE param-sized all-reduce, eval the
     exchange + scalar psums — and nothing else."""
     from tests.test_striped_hybrid import BATCH, FANOUTS, _mk_striped
-    from legion_tpu.parallel.feature_exchange import owner_cap
-    from legion_tpu.parallel.mesh import make_mesh
-    from legion_tpu.train.train_state import create_train_state
-    from legion_tpu.utils.comm import param_bytes
+    from legion.parallel.feature_exchange import owner_cap
+    from legion.parallel.mesh import make_mesh
+    from legion.train.train_state import create_train_state
+    from legion.utils.comm import param_bytes
 
     mesh2 = make_mesh(4, cache_group_size=2)
     kg = 2
@@ -572,10 +572,10 @@ def test_striped_hybrid_collective_composition(small_graph):
 
 
 def test_eval_programs_collective_composition(small_graph):
-    """Eval programs (VERDICT r4 weak #3 tail): the DP eval scan is
+    """Eval programs: the DP eval scan is
     scalar-reductions-only; the striped eval step is the exact exchange
     + scalar psums (no gradient all-reduce, no gathers)."""
-    from legion_tpu.train.loop import make_step_fns
+    from legion.train.loop import make_step_fns
     (cfg, mesh4, graph, caps, model, feats, seeds, labels, params,
      state, step) = _dp_fixture(small_graph)
     # DP eval via the shard_axes step fns directly (the dp driver path)

@@ -3,7 +3,7 @@ rejection (a silently-defaulted key can burn a multi-hour chip run)."""
 
 import pytest
 
-from legion_tpu.config import Config, SamplerConfig, TrainConfig
+from legion.config import Config, SamplerConfig, TrainConfig
 
 
 def test_json_roundtrip():
@@ -37,11 +37,11 @@ def test_no_dead_config_knobs():
     import dataclasses
     import pathlib
 
-    import legion_tpu.config as cfgmod
+    import legion.config as cfgmod
 
     root = pathlib.Path(cfgmod.__file__).resolve().parents[1]
     sources = []
-    for base in (root / "legion_tpu", root / "tools"):
+    for base in (root / "legion", root / "tools"):
         sources += list(base.rglob("*.py"))
     for extra in ("train.py", "bench.py", "__graft_entry__.py"):
         p = root / extra

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from legion_tpu.data.partition import partition_graph
-from legion_tpu.parallel.halo import (
+from legion.data.partition import partition_graph
+from legion.parallel.halo import (
     HostShard, partitioned_row_fetch, partitioned_row_fetch_exact,
     partitioned_sample_hop, partitioned_sample_hop_exact)
 
@@ -234,9 +234,9 @@ def test_probe_dist_caps_bounds_realized_counts(small_graph):
     """probe_dist_caps' caps must cover the realized per-distance counts
     of partition-local seed batches (zero overflow through a real
     partitioned step)."""
-    from legion_tpu.parallel.multihost import probe_dist_caps
-    from legion_tpu.sampling.block import frontier_caps
-    from legion_tpu.sampling.seeds import shard_node_set
+    from legion.parallel.multihost import probe_dist_caps
+    from legion.sampling.block import frontier_caps
+    from legion.sampling.seeds import shard_node_set
     k, b, fanouts = 4, 32, (4, 3)
     part = partition_graph(small_graph, k, mode="greedy")
     shards = shard_node_set(np.asarray(small_graph.train_ids), k, part)
@@ -251,7 +251,7 @@ def test_probe_dist_caps_bounds_realized_counts(small_graph):
 
 
 def test_hostshard_build_vectorized_scale():
-    """PA-scale readiness (VERDICT item 7): the vectorized shard build
+    """PA-scale readiness: the vectorized shard build
     stays edge-linear — ~1M nodes / 15M edges in seconds, where the old
     per-node Python loop took minutes — and round-trips every adjacency
     run exactly."""
@@ -259,8 +259,8 @@ def test_hostshard_build_vectorized_scale():
 
     import numpy as np
 
-    from legion_tpu.data.synthetic import random_power_law_graph
-    from legion_tpu.parallel.halo import HostShard
+    from legion.data.synthetic import random_power_law_graph
+    from legion.parallel.halo import HostShard
 
     g = random_power_law_graph(num_nodes=300_000, avg_degree=12,
                                feature_dim=8, num_classes=4, seed=3)
@@ -287,7 +287,7 @@ def test_hostshard_build_vectorized_scale():
 def test_partition_quality_gate(small_graph):
     """Greedy partitioning must beat hash on edge-cut (the quality the
     halo exchange depends on) — guards regressions in the partitioner."""
-    from legion_tpu.data.partition import edge_cut_fraction, partition_graph
+    from legion.data.partition import edge_cut_fraction, partition_graph
     cut_hash = edge_cut_fraction(
         small_graph, partition_graph(small_graph, 4, mode="hash"))
     cut_greedy = edge_cut_fraction(

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from legion_tpu.cache.hybrid import HybridSampler
-from legion_tpu.cache.topo_cache import TopoCache
-from legion_tpu.sampling.block import frontier_caps
+from legion.cache.hybrid import HybridSampler
+from legion.cache.topo_cache import TopoCache
+from legion.sampling.block import frontier_caps
 
 
 def test_hybrid_sampler_end_to_end(small_graph):
@@ -54,9 +54,9 @@ def test_hybrid_sampler_end_to_end(small_graph):
 def test_run_hybrid_training_end_to_end(small_graph):
     """Full host-topology driver: host presample -> cost model -> topo +
     feature caches -> hybrid-sampled training steps."""
-    from legion_tpu.config import (CacheConfig, Config, DatasetConfig,
-                                   ModelConfig, SamplerConfig, TrainConfig)
-    from legion_tpu.train.hybrid_driver import run_hybrid_training
+    from legion.config import (CacheConfig, Config, DatasetConfig,
+                               ModelConfig, SamplerConfig, TrainConfig)
+    from legion.train.hybrid_driver import run_hybrid_training
     cfg = Config(
         dataset=DatasetConfig(num_classes=int(small_graph.num_classes),
                               topology_placement="host",
@@ -75,8 +75,8 @@ def test_run_hybrid_training_end_to_end(small_graph):
 
 
 def _hybrid_cfg(small_graph, epochs=2, ck=None, every=0):
-    from legion_tpu.config import (CacheConfig, Config, DatasetConfig,
-                                   ModelConfig, SamplerConfig, TrainConfig)
+    from legion.config import (CacheConfig, Config, DatasetConfig,
+                               ModelConfig, SamplerConfig, TrainConfig)
     return Config(
         dataset=DatasetConfig(num_classes=int(small_graph.num_classes),
                               topology_placement="host",
@@ -95,7 +95,7 @@ def test_hybrid_driver_eval_and_fetch_budget(small_graph):
     """VERDICT item 3: the hybrid driver reports Val/Test accuracy, and
     the pipelined trainer spends H packed device->host fetches per step
     (vs 2H+1 for the naive per-hop hit+frontier+plan fetches)."""
-    from legion_tpu.train.hybrid_driver import run_hybrid_training
+    from legion.train.hybrid_driver import run_hybrid_training
     res = run_hybrid_training(_hybrid_cfg(small_graph), small_graph,
                               log=lambda s: None)
     chance = 1.0 / small_graph.num_classes
@@ -123,7 +123,7 @@ def test_hybrid_eval_fetch_budget(small_graph):
     cross-batch overlap structure is shared with run_epoch): batch t+1's
     hop-0 is computed inside batch t's finish program, so the host legs
     overlap device eval — no extra round-trips."""
-    from legion_tpu.train.hybrid_driver import run_hybrid_training
+    from legion.train.hybrid_driver import run_hybrid_training
     res = run_hybrid_training(_hybrid_cfg(small_graph, epochs=1),
                               small_graph, log=lambda s: None)
     tr = res["trainer"]
@@ -145,8 +145,8 @@ def test_hybrid_eval_fetch_budget(small_graph):
 
 
 def test_hybrid_driver_kill_and_resume(small_graph, tmp_path):
-    from legion_tpu.train.hybrid_driver import run_hybrid_training
-    from legion_tpu.train.train_state import latest_checkpoint
+    from legion.train.hybrid_driver import run_hybrid_training
+    from legion.train.train_state import latest_checkpoint
     ck = str(tmp_path / "ck")
     run_hybrid_training(_hybrid_cfg(small_graph, epochs=1, ck=ck, every=2),
                         small_graph, log=lambda s: None)

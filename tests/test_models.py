@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from legion_tpu.models.gcn import GraphConvLayer
-from legion_tpu.models.sage import SAGE, SAGEConv
-from legion_tpu.sampling.block import frontier_caps
-from legion_tpu.sampling.sampler import DeviceGraph, gather_features, sample_batch
+from legion.models.gcn import graph_conv, graph_conv_init
+from legion.models.sage import SAGE, sage_conv, sage_conv_init
+from legion.sampling.block import frontier_caps
+from legion.sampling.sampler import DeviceGraph, gather_features, sample_batch
 from tests.oracle import decode_block, gcn_conv_np, sage_conv_np
 
 
@@ -30,11 +30,9 @@ def test_sageconv_matches_oracle(small_graph):
     h_src = np.asarray(gather_features(
         jnp.asarray(np.asarray(small_graph.features)), batch.frontier))
 
-    layer = SAGEConv(out_dim=16)
-    params = layer.init(jax.random.PRNGKey(0), blk, jnp.asarray(h_src))
-    out = np.asarray(layer.apply(params, blk, jnp.asarray(h_src)))
+    p = sage_conv_init(jax.random.PRNGKey(0), h_src.shape[1], 16)
+    out = np.asarray(sage_conv(p, blk, jnp.asarray(h_src)))
 
-    p = params["params"]
     edges, num_src, num_dst = decode_block(batch, blk)
     ref = sage_conv_np(h_src, edges, blk.dst_cap,
                        np.asarray(p["fc_self"]["kernel"]),
@@ -49,10 +47,8 @@ def test_gcnconv_matches_oracle(small_graph):
     blk = batch.blocks[-1]
     h_src = np.asarray(gather_features(
         jnp.asarray(np.asarray(small_graph.features)), batch.frontier))
-    layer = GraphConvLayer(out_dim=16)
-    params = layer.init(jax.random.PRNGKey(1), blk, jnp.asarray(h_src))
-    out = np.asarray(layer.apply(params, blk, jnp.asarray(h_src)))
-    p = params["params"]
+    p = graph_conv_init(jax.random.PRNGKey(1), h_src.shape[1], 16)
+    out = np.asarray(graph_conv(p, blk, jnp.asarray(h_src)))
     edges, num_src, num_dst = decode_block(batch, blk)
     ref = gcn_conv_np(h_src, edges, h_src.shape[0], blk.dst_cap,
                       np.asarray(p["dense"]["kernel"]),
@@ -97,10 +93,8 @@ def test_sageconv_identity_block_matches_oracle(small_graph):
     assert blk.identity_offset is not None
     h_src = np.asarray(gather_features(
         jnp.asarray(np.asarray(small_graph.features)), batch.frontier))
-    layer = SAGEConv(out_dim=16)
-    params = layer.init(jax.random.PRNGKey(0), blk, jnp.asarray(h_src))
-    out = np.asarray(layer.apply(params, blk, jnp.asarray(h_src)))
-    p = params["params"]
+    p = sage_conv_init(jax.random.PRNGKey(0), h_src.shape[1], 16)
+    out = np.asarray(sage_conv(p, blk, jnp.asarray(h_src)))
     edges, _, num_dst = decode_block(batch, blk)
     ref = sage_conv_np(h_src, edges, blk.dst_cap,
                        np.asarray(p["fc_self"]["kernel"]),
@@ -115,10 +109,8 @@ def test_gcnconv_identity_block_matches_oracle(small_graph):
     blk = batch.blocks[-1]
     h_src = np.asarray(gather_features(
         jnp.asarray(np.asarray(small_graph.features)), batch.frontier))
-    layer = GraphConvLayer(out_dim=16)
-    params = layer.init(jax.random.PRNGKey(1), blk, jnp.asarray(h_src))
-    out = np.asarray(layer.apply(params, blk, jnp.asarray(h_src)))
-    p = params["params"]
+    p = graph_conv_init(jax.random.PRNGKey(1), h_src.shape[1], 16)
+    out = np.asarray(graph_conv(p, blk, jnp.asarray(h_src)))
     edges, _, num_dst = decode_block(batch, blk)
     ref = gcn_conv_np(h_src, edges, h_src.shape[0], blk.dst_cap,
                       np.asarray(p["dense"]["kernel"]),

@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from legion_tpu.config import Config, DatasetConfig, ModelConfig, SamplerConfig, TrainConfig
-from legion_tpu.data.partition import partition_graph
-from legion_tpu.models import build_model
-from legion_tpu.parallel.multihost import make_partitioned_train_step
-from legion_tpu.sampling.block import frontier_caps
-from legion_tpu.sampling.seeds import shard_node_set
-from legion_tpu.train.train_state import create_train_state
+from legion.config import Config, DatasetConfig, ModelConfig, SamplerConfig, TrainConfig
+from legion.data.partition import partition_graph
+from legion.models import build_model
+from legion.parallel.multihost import make_partitioned_train_step
+from legion.sampling.block import frontier_caps
+from legion.sampling.seeds import shard_node_set
+from legion.train.train_state import create_train_state
 
 K = 8
 
@@ -41,7 +41,7 @@ def test_partitioned_training_learns(small_graph):
 
     # params init on a dummy single-host batch shape
     x0 = jnp.zeros((caps[-1], small_graph.feature_dim), jnp.float32)
-    from legion_tpu.sampling.sampler import DeviceGraph, sample_batch
+    from legion.sampling.sampler import DeviceGraph, sample_batch
     g = DeviceGraph.from_host(small_graph.indptr, small_graph.indices)
     batch0 = sample_batch(jax.random.PRNGKey(0), g,
                           jnp.arange(b, dtype=jnp.int32),
@@ -84,9 +84,9 @@ def test_partitioned_training_learns(small_graph):
 def test_put_shards_distributed_matches_build(small_graph):
     """Per-process loading (jax.distributed scaffolding) assembles
     exactly the arrays the single-process put_shards builds."""
-    from legion_tpu.parallel.halo import HostShard
-    from legion_tpu.parallel.launch import (local_part_ids,
-                                            put_shards_distributed)
+    from legion.parallel.halo import HostShard
+    from legion.parallel.launch import (local_part_ids,
+                                        put_shards_distributed)
     mesh = Mesh(np.array(jax.devices()[:4]), ("data",))
     part = partition_graph(small_graph, 4, mode="greedy")
 
@@ -108,8 +108,8 @@ def test_put_shards_distributed_matches_build(small_graph):
 def test_partitioned_lifecycle_and_resume(small_graph, tmp_path):
     """run_partitioned_training: multi-epoch fit on the virtual mesh
     with Val/Test accuracy and checkpoint resume (SURVEY §7 step 7)."""
-    from legion_tpu.train.partitioned_driver import run_partitioned_training
-    from legion_tpu.config import ParallelConfig
+    from legion.train.partitioned_driver import run_partitioned_training
+    from legion.config import ParallelConfig
 
     def mk(epochs):
         return Config(
@@ -137,16 +137,16 @@ def test_partitioned_lifecycle_and_resume(small_graph, tmp_path):
 
 
 def test_partitioned_within_bound_of_dp(small_graph):
-    """Scaling guard (VERDICT r1 #8): the partitioned step's edges/s
+    """Scaling guard: the partitioned step's edges/s
     must stay within a (loose, CPU-timing-tolerant) factor of the DP
     step's at 4 devices. Catches structural regressions — e.g. a
     collective accidentally serialized per hop. Measured ratio on the
     virtual mesh is ~0.9 (docs/ARCHITECTURE.md scaling table)."""
     import time
 
-    from legion_tpu.parallel.dp import make_dp_train_step
-    from legion_tpu.parallel.mesh import make_mesh
-    from legion_tpu.sampling.sampler import DeviceGraph, sample_batch
+    from legion.parallel.dp import make_dp_train_step
+    from legion.parallel.mesh import make_mesh
+    from legion.sampling.sampler import DeviceGraph, sample_batch
 
     k, b, fanouts = 4, 64, (4, 3)
     cfg = Config(
@@ -174,25 +174,33 @@ def test_partitioned_within_bound_of_dp(small_graph):
         np.int32)
     labels_np = np.asarray(small_graph.labels)[seeds_np].astype(np.int32)
 
-    def rate(step_fn, args, put):
-        st = create_train_state(
-            jax.tree_util.tree_map(jnp.copy, params), 0.01, 0)
-        st, m = step_fn(st, *args)           # compile + warm
-        _ = float(m["loss"])
-        best = np.inf
-        for _i in range(3):
+    class Timed:
+        """One step program: compiled and warmed on construction; each
+        ``step()`` times one step per sampled edge, keeping the best."""
+
+        def __init__(self, step_fn, args):
+            self.fn, self.args, self.best = step_fn, args, np.inf
+            self.st = create_train_state(
+                jax.tree_util.tree_map(jnp.copy, params), 0.01, 0)
+            self.st, m = step_fn(self.st, *args)   # compile + warm
+            _ = float(m["loss"])
+
+        def step(self):
             t0 = time.perf_counter()
-            st, m = step_fn(st, *args)
+            self.st, m = self.fn(self.st, *self.args)
             e = float(m["edges"]); _ = float(m["loss"])
-            best = min(best, (time.perf_counter() - t0) / e)
-        return 1.0 / best
+            self.best = min(self.best, (time.perf_counter() - t0) / e)
+
+        @property
+        def rate(self):
+            return 1.0 / self.best
 
     dmesh = make_mesh(k, cache_group_size=1)
     dsh = NamedSharding(dmesh, P(("data", "cache")))
     dstep, _ = make_dp_train_step(cfg, model, caps, dmesh)
-    dp_rate = rate(dstep, (g, feats, jax.device_put(seeds_np, dsh),
-                           jnp.full((), b, jnp.int32),
-                           jax.device_put(labels_np, dsh)), dsh)
+    dstep_t = Timed(dstep, (g, feats, jax.device_put(seeds_np, dsh),
+                            jnp.full((), b, jnp.int32),
+                            jax.device_put(labels_np, dsh)))
 
     pmesh = Mesh(np.array(jax.devices()[:k]), ("data",))
     part = partition_graph(small_graph, k, mode="greedy")
@@ -201,13 +209,19 @@ def test_partitioned_within_bound_of_dp(small_graph):
     shard_args = put_shards(small_graph.indptr, small_graph.indices,
                             small_graph.features, part)
     psh = NamedSharding(pmesh, P("data"))
-    part_rate = rate(pstep, (*shard_args,
-                             jax.device_put(seeds_np, psh),
-                             jax.device_put(np.full((k,), b, np.int32),
-                                            psh),
-                             jax.device_put(labels_np, psh)), psh)
+    pstep_t = Timed(pstep, (*shard_args,
+                            jax.device_put(seeds_np, psh),
+                            jax.device_put(np.full((k,), b, np.int32),
+                                           psh),
+                            jax.device_put(labels_np, psh)))
+    # the two programs' steps alternate, so a burst of load from other
+    # processes on the host slows both rather than one
+    for _i in range(5):
+        dstep_t.step()
+        pstep_t.step()
 
-    assert part_rate > 0.25 * dp_rate, (part_rate, dp_rate)
+    assert pstep_t.rate > 0.25 * dstep_t.rate, (pstep_t.rate,
+                                              dstep_t.rate)
 
 
 def test_partitioned_uses_precomputed_partition(small_graph, tmp_path):
@@ -216,10 +230,10 @@ def test_partitioned_uses_precomputed_partition(small_graph, tmp_path):
     verbatim instead of re-partitioning."""
     import dataclasses as _dc
 
-    from legion_tpu.config import (Config, DatasetConfig, ModelConfig,
-                                   ParallelConfig, SamplerConfig,
-                                   TrainConfig)
-    from legion_tpu.train.partitioned_driver import run_partitioned_training
+    from legion.config import (Config, DatasetConfig, ModelConfig,
+                               ParallelConfig, SamplerConfig,
+                               TrainConfig)
+    from legion.train.partitioned_driver import run_partitioned_training
     part = partition_graph(small_graph, 4, mode="hash")
     data = _dc.replace(small_graph, partition=part) if _dc.is_dataclass(
         small_graph) else small_graph._replace(partition=part)
@@ -279,9 +293,9 @@ def test_two_process_launch_matches_single_process(small_graph):
     assert recs[0]["valid"] == recs[1]["valid"]
 
     # single-process reference: SAME program on a 4-device mesh
-    from legion_tpu.config import (CacheConfig, ParallelConfig)
-    from legion_tpu.data.synthetic import random_power_law_graph
-    from legion_tpu.train.partitioned_driver import run_partitioned_training
+    from legion.config import (CacheConfig, ParallelConfig)
+    from legion.data.synthetic import random_power_law_graph
+    from legion.train.partitioned_driver import run_partitioned_training
     data = random_power_law_graph(num_nodes=2000, avg_degree=8,
                                   feature_dim=32, num_classes=7, seed=1)
     cfg = Config(
@@ -316,10 +330,10 @@ def test_probe_covers_eval_seed_composition(small_graph):
     import dataclasses
     import re
 
-    from legion_tpu.config import ParallelConfig
-    from legion_tpu.parallel.multihost import probe_dist_caps_batches
-    from legion_tpu.sampling.seeds import epoch_eval_seeds, shard_node_set
-    from legion_tpu.train.partitioned_driver import run_partitioned_training
+    from legion.config import ParallelConfig
+    from legion.parallel.multihost import probe_dist_caps_batches
+    from legion.sampling.seeds import epoch_eval_seeds, shard_node_set
+    from legion.train.partitioned_driver import run_partitioned_training
 
     k = 4
     part = partition_graph(small_graph, k, mode="greedy")
@@ -346,7 +360,7 @@ def test_probe_covers_eval_seed_composition(small_graph):
                                 halo_probe_batches=2))
 
     events = []
-    from legion_tpu.utils import logging as tlog
+    from legion.utils import logging as tlog
     orig = tlog.log_metrics
     tlog.log_metrics = lambda m, **kw: events.append(m)
     try:

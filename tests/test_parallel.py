@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from legion_tpu.config import Config, DatasetConfig, ModelConfig, SamplerConfig, TrainConfig
-from legion_tpu.models import build_model
-from legion_tpu.parallel.dp import make_dp_train_step, put_striped_features
-from legion_tpu.parallel.feature_exchange import shard_rows, sharded_row_fetch
-from legion_tpu.parallel.mesh import make_mesh
-from legion_tpu.sampling.block import frontier_caps
-from legion_tpu.sampling.sampler import DeviceGraph
-from legion_tpu.train.train_state import create_train_state
+from legion.config import Config, DatasetConfig, ModelConfig, SamplerConfig, TrainConfig
+from legion.models import build_model
+from legion.parallel.dp import make_dp_train_step, put_striped_features
+from legion.parallel.feature_exchange import shard_rows, sharded_row_fetch
+from legion.parallel.mesh import make_mesh
+from legion.sampling.block import frontier_caps
+from legion.sampling.sampler import DeviceGraph
+from legion.train.train_state import create_train_state
 
 
 def test_shard_rows_roundrobin():
@@ -74,7 +74,7 @@ def _setup(small_graph, sharded):
 
 def _init_params(model, small_graph, caps, cfg):
     import jax.random as jr
-    from legion_tpu.sampling.sampler import gather_features, sample_batch
+    from legion.sampling.sampler import gather_features, sample_batch
     g = DeviceGraph.from_host(small_graph.indptr, small_graph.indices)
     b = cfg.sampler.batch_size
     seeds = jnp.arange(b, dtype=jnp.int32)
@@ -149,7 +149,7 @@ def test_exact_fetch_matches_dense_all_group_sizes():
     """The exact (route-by-owner all_to_all) exchange returns the same
     rows as a dense lookup for every group size, with -1 padding and
     duplicate ids, and counts zero overflow at uniform ownership."""
-    from legion_tpu.parallel.feature_exchange import sharded_row_fetch_stats
+    from legion.parallel.feature_exchange import sharded_row_fetch_stats
     rng = np.random.default_rng(3)
     n, d, m = 500, 8, 64
     table = rng.standard_normal((n, d)).astype(np.float32)
@@ -181,7 +181,7 @@ def test_exact_fetch_overflow_counted_and_zeroed():
     """Adversarial skew (every request owned by chip 0): requests beyond
     the per-owner cap return ZERO rows and are COUNTED — the static-cap
     + overflow-metric contract."""
-    from legion_tpu.parallel.feature_exchange import (
+    from legion.parallel.feature_exchange import (
         owner_cap, sharded_row_fetch_stats)
     k, n, d, m = 4, 400, 8, 64
     mesh = make_mesh(k, cache_group_size=k)
@@ -210,7 +210,7 @@ def test_striped_plan_demotes_overflow_to_misses():
     """StripedFeatureCache.plan_ids(k>1): hits beyond the exchange cap
     become host-staged misses — correct under any skew, never zero rows
     (the feature-path self-healing contract)."""
-    from legion_tpu.cache.striped import StripedFeatureCache
+    from legion.cache.striped import StripedFeatureCache
     # hot ranks 0..63, all with rank % 4 == 0 -> all owned by chip 0
     m, k, miss_cap = 64, 4, 64
     hot = jnp.arange(0, 256, 1, dtype=jnp.int32)
@@ -220,7 +220,7 @@ def test_striped_plan_demotes_overflow_to_misses():
     base = StripedFeatureCache.plan_ids(hot, frontier, miss_cap)
     assert int(base.num_hit) == m
     plan = StripedFeatureCache.plan_ids(hot, frontier, miss_cap, k=k)
-    from legion_tpu.parallel.feature_exchange import owner_cap
+    from legion.parallel.feature_exchange import owner_cap
     cap = owner_cap(m, k)
     assert int(plan.num_hit) == cap
     assert int(plan.num_miss) == m - cap

@@ -4,7 +4,7 @@ numpy fallbacks / device sampler semantics."""
 import numpy as np
 import pytest
 
-from legion_tpu import runtime
+from legion import runtime
 
 
 def test_native_builds():

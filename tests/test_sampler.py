@@ -4,9 +4,10 @@ invariants (SURVEY.md §4 planned pyramid)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from legion_tpu.sampling.block import frontier_caps
-from legion_tpu.sampling.sampler import (
+from legion.sampling.block import frontier_caps
+from legion.sampling.sampler import (
     DeviceGraph, gather_features, grow_frontier, sample_batch, sample_neighbors)
 
 
@@ -146,7 +147,7 @@ def test_gather_features(small_graph):
 
 
 def test_append_frontier_identity_layout():
-    from legion_tpu.sampling.sampler import append_frontier
+    from legion.sampling.sampler import append_frontier
     frontier = jnp.array([10, 20, -1, -1], jnp.int32)
     nbrs = jnp.array([[30, 10, 30], [20, 40, -1]], jnp.int32)
     fnew, num, blk = append_frontier(frontier, jnp.int32(2), nbrs, 10)
@@ -202,7 +203,7 @@ def test_line_layouts_match_per_edge(small_graph):
     windowed 2-line layout) must be bit-identical to the per-edge gather
     for the same key — and to each other, since draws depend only on
     degrees, which layouts preserve."""
-    from legion_tpu.sampling.sampler import sample_neighbors_per_edge
+    from legion.sampling.sampler import sample_neighbors_per_edge
     gw = DeviceGraph.from_host(small_graph.indptr, small_graph.indices,
                                layout="windowed")
     ga = DeviceGraph.from_host(small_graph.indptr, small_graph.indices,
@@ -227,7 +228,7 @@ def test_aligned_layout_midsize_runs_dont_straddle():
     placement put it at offset % 128 == 64, straddling a line, and the
     covered-path select silently clamped draws to lane 127 (wrong
     neighbors). Mixed degrees 1..200 sweep, bit-identical to per-edge."""
-    from legion_tpu.sampling.sampler import sample_neighbors_per_edge
+    from legion.sampling.sampler import sample_neighbors_per_edge
     rng = np.random.default_rng(7)
     # deg=[10, 100]: the original reproducer; then a randomized sweep
     for deg in ([10, 100],
@@ -265,7 +266,7 @@ def test_line_tail_path_exercised():
     """Graph with hub nodes beyond the window/line: tail fallback must
     still be bit-identical to per-edge sampling and big_deg_count must
     see the hubs — in both layouts."""
-    from legion_tpu.sampling.sampler import sample_neighbors_per_edge
+    from legion.sampling.sampler import sample_neighbors_per_edge
     rng = np.random.default_rng(0)
     n, hub_deg = 3000, 700
     # 5 hubs with deg 700 (> WINDOW_LINES*128-129 and > 128), rest ~20
@@ -291,7 +292,7 @@ def test_lined_auto_and_size_guard():
     """from_host("auto") picks lined under the byte budget and falls
     back to aligned/windowed beyond it; lined parity holds for a
     zero-big-degree graph (tail_indices elided entirely)."""
-    from legion_tpu.sampling.sampler import sample_neighbors_per_edge
+    from legion.sampling.sampler import sample_neighbors_per_edge
     rng = np.random.default_rng(2)
     n = 500
     deg = rng.integers(0, 30, size=n)
@@ -313,12 +314,29 @@ def test_lined_auto_and_size_guard():
 
 
 def test_select_lanes_large_ids():
-    """One-hot lane select must be exact for ids >= 2^24 (hi/lo split)."""
-    from legion_tpu.sampling.sampler import _select_lanes
+    """The lane select must be exact for ids >= 2^24 over a two-line
+    (256-lane) window."""
+    from legion.sampling.sampler import _select_lanes
     rng = np.random.default_rng(1)
     win = rng.integers(0, 2**31 - 1, size=(64, 256)).astype(np.int32)
     off = rng.integers(0, 256, size=(64, 5)).astype(np.int32)
-    out = np.asarray(_select_lanes(jnp.asarray(win), jnp.asarray(off),
-                                   max_id=2**31 - 2))
+    out = np.asarray(_select_lanes(jnp.asarray(win), jnp.asarray(off)))
     want = np.take_along_axis(win, off, axis=1)
     assert (out == want).all()
+
+
+@pytest.mark.parametrize("p", [300, 1024])
+@pytest.mark.parametrize("lo,hi", [(0, 1 << 11), (1 << 11, 1 << 24),
+                                   (1 << 24, (1 << 31) - 1)])
+def test_select_lanes_exact(lo, hi, p):
+    """The lane select is an integer gather: exact for ids below 2^11
+    (where a TF32 float select would already round), up to 2^24 and
+    beyond, at a row count that is no tile multiple."""
+    from legion.sampling.sampler import _select_lanes
+    rng = np.random.default_rng(lo % 97 + p)
+    win = rng.integers(lo, hi, (p, 128), dtype=np.int64).astype(np.int32)
+    off = rng.integers(0, 128, (p, 10)).astype(np.int32)
+    got = np.asarray(jax.jit(_select_lanes)(jnp.asarray(win),
+                                            jnp.asarray(off)))
+    assert got.dtype == np.int32
+    assert np.array_equal(got, np.take_along_axis(win, off, axis=1))

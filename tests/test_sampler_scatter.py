@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from legion_tpu.sampling.block import frontier_caps
-from legion_tpu.sampling.sampler import (
+from legion.sampling.block import frontier_caps
+from legion.sampling.sampler import (
     DeviceGraph, sample_batch, sample_batch_scatter)
 
 

@@ -12,18 +12,18 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from legion_tpu.cache.feature_cache import FeatureCache
-from legion_tpu.cache.pipeline import CachedTrainer
-from legion_tpu.cache.striped import StripedFeatureCache
-from legion_tpu.cache.striped_pipeline import MESH_AXES, StripedCachedTrainer
-from legion_tpu.config import (CacheConfig, Config, DatasetConfig,
-                               ModelConfig, ParallelConfig, SamplerConfig,
-                               TrainConfig)
-from legion_tpu.models import build_model
-from legion_tpu.parallel.mesh import make_mesh
-from legion_tpu.sampling.block import frontier_caps
-from legion_tpu.sampling.sampler import DeviceGraph
-from legion_tpu.train.train_state import create_train_state
+from legion.cache.feature_cache import FeatureCache
+from legion.cache.pipeline import CachedTrainer
+from legion.cache.striped import StripedFeatureCache
+from legion.cache.striped_pipeline import MESH_AXES, StripedCachedTrainer
+from legion.config import (CacheConfig, Config, DatasetConfig,
+                           ModelConfig, ParallelConfig, SamplerConfig,
+                           TrainConfig)
+from legion.models import build_model
+from legion.parallel.mesh import make_mesh
+from legion.sampling.block import frontier_caps
+from legion.sampling.sampler import DeviceGraph
+from legion.train.train_state import create_train_state
 
 
 def _cfg(small_graph, batch=32, group=1, budget=1 << 18):
@@ -140,7 +140,7 @@ def _mk_trainer(small_graph, mesh, capacity=700, batch=32, miss_cap=None):
     feats, fc, sc = _caches(small_graph, capacity, miss_cap, mesh)
     model = build_model("sage", 16, small_graph.num_classes, 2, 0.0)
     # params init (shapes only)
-    from legion_tpu.sampling.sampler import sample_batch
+    from legion.sampling.sampler import sample_batch
     b0 = sample_batch(jax.random.PRNGKey(0), graph,
                       jnp.arange(batch, dtype=jnp.int32),
                       jnp.full((), batch, jnp.int32),
@@ -279,8 +279,8 @@ def test_striped_eval_pipelined(small_graph):
 
 def test_striped_driver_lifecycle(small_graph, tmp_path):
     """One command trains multi-epoch on the virtual mesh, prints
-    Val/Test accuracy, and resumes from checkpoint (VERDICT item 2)."""
-    from legion_tpu.train.striped_driver import run_striped_training
+    Val/Test accuracy, and resumes from checkpoint."""
+    from legion.train.striped_driver import run_striped_training
     cfg = _cfg(small_graph, batch=32, group=2, budget=64 << 10)
     cfg = Config(dataset=cfg.dataset, sampler=cfg.sampler, model=cfg.model,
                  train=TrainConfig(learning_rate=0.01, seed=0, epochs=2,

@@ -13,18 +13,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from legion_tpu.cache.feature_cache import FeatureCache
-from legion_tpu.cache.hybrid import HybridTrainer
-from legion_tpu.cache.striped import StripedFeatureCache, StripedTopoCache
-from legion_tpu.cache.striped_hybrid import StripedHybridTrainer
-from legion_tpu.cache.topo_cache import TopoCache
-from legion_tpu.config import (CacheConfig, Config, DatasetConfig,
-                               ModelConfig, ParallelConfig, SamplerConfig,
-                               TrainConfig)
-from legion_tpu.models import build_model
-from legion_tpu.parallel.mesh import make_mesh
-from legion_tpu.sampling.block import frontier_caps
-from legion_tpu.train.train_state import create_train_state
+from legion.cache.feature_cache import FeatureCache
+from legion.cache.hybrid import HybridTrainer
+from legion.cache.striped import StripedFeatureCache, StripedTopoCache
+from legion.cache.striped_hybrid import StripedHybridTrainer
+from legion.cache.topo_cache import TopoCache
+from legion.config import (CacheConfig, Config, DatasetConfig,
+                           ModelConfig, ParallelConfig, SamplerConfig,
+                           TrainConfig)
+from legion.models import build_model
+from legion.parallel.mesh import make_mesh
+from legion.sampling.block import frontier_caps
+from legion.train.train_state import create_train_state
 
 BATCH, FANOUTS = 32, (4, 3)
 
@@ -63,7 +63,7 @@ def _mk_striped(small_graph, mesh, topo_cap=500, feat_cap=700,
                                    mesh)
 
     model = build_model("sage", 16, small_graph.num_classes, 2, 0.0)
-    from legion_tpu.cache.hybrid import HybridSampler
+    from legion.cache.hybrid import HybridSampler
     hs = HybridSampler(TopoCache.build(indptr, indices, topo_order, 1),
                        indptr, indices, FANOUTS, caps)
     b0 = hs.sample_batch(jax.random.PRNGKey(0),
@@ -196,7 +196,7 @@ def test_cli_routes_host_topology_multichip(tmp_path):
 def test_striped_hybrid_driver_lifecycle(small_graph, tmp_path):
     """Full driver at 4 devices / Kg=2: multi-epoch training with
     Val/Test accuracy, learning, and checkpoint resume."""
-    from legion_tpu.train.striped_hybrid_driver import (
+    from legion.train.striped_hybrid_driver import (
         run_striped_hybrid_training)
     ck = str(tmp_path / "ck")
     cfg = _cfg(small_graph, epochs=2, ck=ck)

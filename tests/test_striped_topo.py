@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from legion_tpu.cache.striped import StripedTopoCache
-from legion_tpu.cache.topo_cache import TopoCache
-from legion_tpu.parallel.mesh import make_mesh
+from legion.cache.striped import StripedTopoCache
+from legion.cache.topo_cache import TopoCache
+from legion.parallel.mesh import make_mesh
 
 
 def _adj_sets(g):

@@ -4,9 +4,9 @@ is downstream accuracy, SURVEY.md §4)."""
 
 import numpy as np
 
-from legion_tpu.config import (Config, DatasetConfig, ModelConfig,
-                               SamplerConfig, TrainConfig)
-from legion_tpu.train.loop import Trainer
+from legion.config import (Config, DatasetConfig, ModelConfig,
+                           SamplerConfig, TrainConfig)
+from legion.train.loop import Trainer
 
 
 def _cfg(num_classes, arch="sage", batch=128):
@@ -62,7 +62,7 @@ def test_checkpoint_roundtrip(small_graph, tmp_path):
                                    checkpoint_dir=str(tmp_path / "ckpt")))
     tr = Trainer(cfg, small_graph)
     tr.train_one_epoch(0)
-    from legion_tpu.train.train_state import restore_checkpoint, save_checkpoint
+    from legion.train.train_state import restore_checkpoint, save_checkpoint
     save_checkpoint(cfg.train.checkpoint_dir, tr.state)
 
     tr2 = Trainer(cfg, small_graph)  # restores in __init__
@@ -77,9 +77,9 @@ def test_trainer_cap_probe(small_graph):
     """Probing tightens caps below the loose bound and training still
     runs (probe gate forced on via min_cap=0)."""
     import dataclasses
-    from legion_tpu.config import Config, DatasetConfig, ModelConfig, SamplerConfig, TrainConfig
-    from legion_tpu.sampling.block import frontier_caps
-    from legion_tpu.train.loop import Trainer
+    from legion.config import Config, DatasetConfig, ModelConfig, SamplerConfig, TrainConfig
+    from legion.sampling.block import frontier_caps
+    from legion.train.loop import Trainer
     cfg = Config(
         dataset=DatasetConfig(num_classes=int(small_graph.num_classes)),
         sampler=SamplerConfig(fanouts=(8, 8), batch_size=64,
@@ -97,8 +97,8 @@ def test_trainer_cap_probe(small_graph):
 
 def test_trainer_three_hop(small_graph):
     """3-hop sampling + 3-layer model end to end (fanouts generalize)."""
-    from legion_tpu.config import Config, DatasetConfig, ModelConfig, SamplerConfig, TrainConfig
-    from legion_tpu.train.loop import Trainer
+    from legion.config import Config, DatasetConfig, ModelConfig, SamplerConfig, TrainConfig
+    from legion.train.loop import Trainer
     cfg = Config(
         dataset=DatasetConfig(num_classes=int(small_graph.num_classes)),
         sampler=SamplerConfig(fanouts=(4, 3, 2), batch_size=32,
@@ -117,13 +117,13 @@ def test_cap_overflow_metric_fires(small_graph):
     mode the guard exists for)."""
     import jax
     import jax.numpy as jnp
-    from legion_tpu.config import (Config, DatasetConfig, ModelConfig,
-                                   SamplerConfig, TrainConfig)
-    from legion_tpu.data.format import pad_feature_dim
-    from legion_tpu.models import build_model
-    from legion_tpu.sampling.sampler import DeviceGraph, gather_features, sample_batch
-    from legion_tpu.train.loop import make_step_fns
-    from legion_tpu.train.train_state import create_train_state
+    from legion.config import (Config, DatasetConfig, ModelConfig,
+                               SamplerConfig, TrainConfig)
+    from legion.data.format import pad_feature_dim
+    from legion.models import build_model
+    from legion.sampling.sampler import DeviceGraph, gather_features, sample_batch
+    from legion.train.loop import make_step_fns
+    from legion.train.train_state import create_train_state
 
     b = 64
     cfg = Config(dataset=DatasetConfig(num_classes=small_graph.num_classes),
@@ -182,7 +182,7 @@ def test_lp_eval_is_pair_weighted():
     import jax.numpy as jnp
     import numpy as np
 
-    from legion_tpu.train.loop import lp_logsigmoid_loss, lp_logsigmoid_sum
+    from legion.train.loop import lp_logsigmoid_loss, lp_logsigmoid_sum
 
     rng = np.random.default_rng(0)
     emb_full = jnp.asarray(rng.normal(size=(12, 8)).astype(np.float32))

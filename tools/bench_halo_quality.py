@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Partition quality -> halo traffic, measured (VERDICT r4 next #5).
+"""Partition quality -> halo traffic, measured. CPU-only: runs on an
+8-device virtual CPU mesh.
 
 On a planted-community graph (data/synthetic.streaming_power_law_graph
 with ``communities``), compare GREEDY+refinement vs HASH partitions on:
@@ -60,8 +61,8 @@ def main():
     args = ap.parse_args()
     fanouts = tuple(int(x) for x in args.fanouts.split(","))
 
-    from legion_tpu.data.format import load_dataset
-    from legion_tpu.data.synthetic import streaming_power_law_graph
+    from legion.data.format import load_dataset
+    from legion.data.synthetic import streaming_power_law_graph
     cache = os.path.join(
         CACHE_DIR, f"synth_clu_{args.nodes}_{args.deg}_"
         f"{args.communities}_{args.intra}")
@@ -77,14 +78,14 @@ def main():
         log(f"generated in {time.time() - t0:.0f}s")
     data = load_dataset(cache, mmap=args.nodes > 10_000_000)
 
-    from legion_tpu.config import (Config, DatasetConfig, ModelConfig,
-                                   SamplerConfig, TrainConfig)
-    from legion_tpu.data.partition import edge_cut_fraction, partition_graph
-    from legion_tpu.parallel.multihost import probe_dist_caps
-    from legion_tpu.sampling.block import frontier_caps
-    from legion_tpu.sampling.seeds import shard_node_set
-    from legion_tpu.utils.comm import (halo_exact_fetch_bytes,
-                                       halo_exact_hop_bytes)
+    from legion.config import (Config, DatasetConfig, ModelConfig,
+                               SamplerConfig, TrainConfig)
+    from legion.data.partition import edge_cut_fraction, partition_graph
+    from legion.parallel.multihost import probe_dist_caps
+    from legion.sampling.block import frontier_caps
+    from legion.sampling.seeds import shard_node_set
+    from legion.utils.comm import (halo_exact_fetch_bytes,
+                                   halo_exact_hop_bytes)
 
     k, b = args.k, args.batch
     caps = frontier_caps(b, fanouts)
@@ -111,10 +112,10 @@ def main():
                "halo_bytes_per_step": step_bytes}
 
         if not args.partition_only:
-            from legion_tpu.models import build_model
-            from legion_tpu.parallel.multihost import (
+            from legion.models import build_model
+            from legion.parallel.multihost import (
                 AXIS, make_partitioned_train_step)
-            from legion_tpu.train.train_state import create_train_state
+            from legion.train.train_state import create_train_state
             from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
             import jax.numpy as jnp
             cfg = Config(
@@ -130,7 +131,7 @@ def main():
             shard_args = put_shards(data.indptr, data.indices,
                                     data.features, part)
             # params via dummy shapes
-            from legion_tpu.train.partitioned_driver import _dummy_blocks
+            from legion.train.partitioned_driver import _dummy_blocks
             x0 = jnp.zeros((caps[-1], data.feature_dim), jnp.float32)
             params = model.init(
                 jax.random.PRNGKey(0),

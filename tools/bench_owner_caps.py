@@ -14,7 +14,7 @@ each owner cap would demote to the host path. One JSON line per
 Round-robin striping spreads a frontier's hit RANKS binomially over
 owners (fluctuation ~sqrt(H/K) around H/K), so the expected rate is
 ~zero at 1.05x; a persistently nonzero rate here is the signal to
-raise the slack. Runs on the TPU chip (sampling is jitted); the
+raise the slack. Runs on the GPU (sampling is jitted); the
 exchange itself never runs — demotion is a pure function of
 (hot set, frontier, cap)."""
 
@@ -29,11 +29,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from legion_tpu.cache.feature_cache import FeatureCache
-from legion_tpu.parallel.feature_exchange import (
+from legion.cache.feature_cache import FeatureCache
+from legion.parallel.feature_exchange import (
     PROBED_OWNER_SLACK, owner_cap, owner_counts, probed_owner_cap)
-from legion_tpu.sampling.block import frontier_caps
-from legion_tpu.sampling.sampler import DeviceGraph, sample_batch
+from legion.sampling.block import frontier_caps
+from legion.sampling.sampler import DeviceGraph, sample_batch
+from legion.utils.compile_cache import configure_compile_cache
 
 BATCH = int(os.environ.get("BENCH_BATCH", 8000))
 FANOUTS = (25, 10)
@@ -49,13 +50,8 @@ def log(m):
 
 
 def main():
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.join(CACHE_DIR, "jaxcache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
-    except Exception:
-        pass
-    from legion_tpu.data.format import load_dataset
+    configure_compile_cache()
+    from legion.data.format import load_dataset
     cache = os.path.join(CACHE_DIR, "synth_2449029_50")
     data = load_dataset(cache, mmap=False)
     graph = DeviceGraph.from_host(data.indptr, data.indices)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""One-command OGB accuracy-parity harness (VERDICT r4 next #4).
+"""One-command OGB accuracy-parity harness.
 
 The reference's only correctness test is OGB valid/test accuracy printed
 by its training client (``pytorch_extension/legion_graphsage.py:159-181``
@@ -9,7 +9,7 @@ downloaded dataset is mountable:
 
     python tools/parity_ogb.py --name ogbn-products --ogb-root /data/ogb
 
-does: convert (``legion_tpu.data.ogb``, skipped if the packed dir
+does: convert (``legion.data.ogb``, skipped if the packed dir
 already exists) -> train with the reference hyperparameters (hidden 256,
 fanout [25,10], batch 8000, lr 0.003, dropout 0.5, Adam, 10 epochs —
 ``legion_server.py:77-83``, ``legion_graphsage.py:195-203``) -> compare
@@ -85,23 +85,23 @@ def main(argv=None) -> int:
             ap.error(f"no pinned target for ({args.name}, {args.arch}); "
                      "pass --target explicitly")
 
-    from legion_tpu.data.format import load_dataset
+    from legion.data.format import load_dataset
 
     if os.path.exists(os.path.join(out, "meta.json")):
         print(f"packed dataset found at {out}; skipping conversion",
               file=sys.stderr, flush=True)
         data = load_dataset(out)
     else:
-        from legion_tpu.data.ogb import convert_ogb_node_dataset
+        from legion.data.ogb import convert_ogb_node_dataset
         print(f"converting {args.name} from {args.ogb_root} -> {out}",
               file=sys.stderr, flush=True)
         convert_ogb_node_dataset(args.name, args.ogb_root, out)
         data = load_dataset(out)
 
     fanouts = tuple(int(x) for x in args.fanouts.split(","))
-    from legion_tpu.config import (CacheConfig, Config, DatasetConfig,
-                                   ModelConfig, SamplerConfig,
-                                   TrainConfig)
+    from legion.config import (CacheConfig, Config, DatasetConfig,
+                               ModelConfig, SamplerConfig,
+                               TrainConfig)
     cfg = Config(
         dataset=DatasetConfig(
             name=args.name, path=out, num_nodes=data.num_nodes,
@@ -120,12 +120,12 @@ def main(argv=None) -> int:
                           budget_bytes=int(args.cache_budget_gb * 2**30)))
 
     if cfg.cache.enabled:
-        from legion_tpu.train.cached_driver import run_cached_training
+        from legion.train.cached_driver import run_cached_training
         res = run_cached_training(cfg, data)
         test_acc = float(res["test_acc"])
         valid_acc = float(res["history"][-1].get("valid", float("nan")))
     else:
-        from legion_tpu.train.loop import Trainer
+        from legion.train.loop import Trainer
         tr = Trainer(cfg, data)
         res = tr.fit()
         test_acc = float(res["test_acc"])

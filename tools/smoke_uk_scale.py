@@ -1,13 +1,13 @@
 #!/usr/bin/env python
 """uk-union-scale smoke: the reference's BILLION-edge host-topology
 configuration (registry UKS: 133.6M nodes / 5.5B edges,
-``legion_server.py:30-35``) run end-to-end on ONE chip through the
+``legion_server.py:30-35``) run end-to-end on ONE GPU through the
 public hybrid driver — host CSR beyond 2^31 edges (int64 addressing in
 the C++ sampler and every cache-build path), HBM hot sub-CSR + striped
 feature cache from the cost model, threaded host sampling for cold
 frontier nodes, host-staged feature misses.
 
-What this validates that the PA-scale smoke cannot (VERDICT r3 #1):
+What this validates that the PA-scale smoke cannot:
 * >2^31-edge host CSR: every indptr value past edge 2^31 is int64
   end-to-end (memmap'd 22GB indices file, C++ sampler, TopoCache.build
   gathers, presampling);
@@ -20,7 +20,7 @@ Run:  python tools/smoke_uk_scale.py [epoch_steps=6]
                                     step on the 8-device virtual CPU
                                     mesh at this scale (tiny batch)
 The ~40GB dataset is generated once into .bench_cache/synth_uk
-(~25 min on this 2-core host; features are narrow — dim 32 — per the
+(generation time grows with the host's cores; features are narrow — dim 32 — per the
 smoke's scope: topology scale is what's under test).
 """
 
@@ -45,8 +45,8 @@ STEPS = int(ARGS[0]) if ARGS else 6
 
 
 def load_or_gen():
-    from legion_tpu.data.format import load_dataset
-    from legion_tpu.data.synthetic import streaming_power_law_graph
+    from legion.data.format import load_dataset
+    from legion.data.synthetic import streaming_power_law_graph
     if not os.path.exists(os.path.join(CACHE, "meta.json")):
         streaming_power_law_graph(
             CACHE, num_nodes=NODES, avg_degree=AVG_DEG, feature_dim=32,
@@ -65,12 +65,8 @@ def main():
     import numpy as np
 
     import jax
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.join(ROOT, ".bench_cache", "jaxcache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
-    except Exception:
-        pass
+    from legion.utils.compile_cache import configure_compile_cache
+    configure_compile_cache()
     data = load_or_gen()
     data = dataclasses.replace(
         data,
@@ -78,8 +74,8 @@ def main():
         valid_ids=np.asarray(data.valid_ids)[: BATCH],
         test_ids=np.asarray(data.test_ids)[: BATCH])
 
-    from legion_tpu.config import (CacheConfig, Config, DatasetConfig,
-                                   ModelConfig, SamplerConfig, TrainConfig)
+    from legion.config import (CacheConfig, Config, DatasetConfig,
+                               ModelConfig, SamplerConfig, TrainConfig)
 
     cfg = Config(
         dataset=DatasetConfig(name="synthetic-UKS", num_classes=100,
@@ -111,8 +107,8 @@ def main():
                               presample_steps=2),
             train=TrainConfig(learning_rate=0.003, epochs=1),
         )
-        import legion_tpu.config as _c
-        from legion_tpu.train.striped_hybrid_driver import (
+        import legion.config as _c
+        from legion.train.striped_hybrid_driver import (
             run_striped_hybrid_training)
         cfg = dataclasses.replace(
             cfg, parallel=_c.ParallelConfig(num_devices=8),
@@ -129,7 +125,7 @@ def main():
               f"topo_hot {h['topo_hot_fraction']:.3f}", flush=True)
         return
 
-    from legion_tpu.train.hybrid_driver import run_hybrid_training
+    from legion.train.hybrid_driver import run_hybrid_training
     t0 = time.time()
     res = run_hybrid_training(cfg, data)
     h = res["history"][-1]
